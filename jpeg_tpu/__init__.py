@@ -1,7 +1,7 @@
-"""jpeg_tpu — a TPU-native baseline-JPEG engine (JAX/XLA/Pallas).
+"""jpeg_tpu — a baseline-JPEG engine (JAX/XLA + C++).
 
 A from-scratch re-design of the capabilities of the reference Rust decoder
-(martinhath/jpeg-rust, mounted at /root/reference) for TPU hardware:
+(martinhath/jpeg-rust) for an NVIDIA GPU:
 
 - Host container layer: marker/JFIF parse -> ``DecodePlan`` tensors
   (parity: reference ``src/jpeg/mod.rs:202-465``).
@@ -9,7 +9,7 @@ A from-scratch re-design of the capabilities of the reference Rust decoder
   (NumPy oracle, threaded C++ runtime, lane-parallel device decoder)
   (parity: reference ``src/jpeg/huffman.rs``).
 - Device pipeline: dequant+unzigzag+IDCT fused into ONE [64,64] matmul on the
-  MXU, plane assembly by reshape/transpose, chroma upsample, YCbCr->RGB
+  device, plane assembly by reshape/transpose, chroma upsample, YCbCr->RGB
   (parity: reference ``src/jpeg/decoder.rs`` + ``src/transform.rs``).
 - Parallel layer: jax.sharding Mesh + shard_map batch/segment parallelism.
 

@@ -2,9 +2,9 @@
 
 The v2 kernel (:mod:`jpeg_tpu.entropy.device_decode2`) resolves ONE
 Huffman symbol per [65536] gather and then spends ~60 elementwise ops
-decoding magnitude bits, sign extension, and run/size handling. The
-ablation ladder (``tools/ablate_kernel.py``, real v5e) showed no single
-component dominates — the cost IS that op chain, times the symbol count.
+decoding magnitude bits, sign extension, and run/size handling. No single
+component of that chain dominates — the cost IS the op chain, times the
+symbol count.
 
 This module moves the chain into the table, the way the host C++ tier's
 pair-symbol LUT does (``runtime/native/jpegtpu.cpp:131-190``), but

@@ -25,7 +25,7 @@ Semantics (T.81 H.1.2, samples in the point-transform domain
 
 The diffs themselves are embarrassingly decodable per restart segment
 (byte-aligned, predictor state resets) — the same three-tier structure
-as baseline entropy. RECONSTRUCTION is where the TPU-native angle
+as baseline entropy. RECONSTRUCTION is where the device angle
 lives: predictors 1 and 2 are prefix sums (see
 :func:`reconstruct_device`), the JPEG analogue of a scan/cumsum op.
 """
@@ -119,7 +119,7 @@ def reconstruct(plan: DecodePlan, diffs: np.ndarray) -> np.ndarray:
 
 
 def reconstruct_device(plan: DecodePlan, diffs: np.ndarray):
-    """TPU reconstruction for predictors 1 and 2 (restart-free scans):
+    """Device reconstruction for predictors 1 and 2 (restart-free scans):
     the prediction recurrences are exact prefix sums, so the whole
     image reconstructs as two ``jnp.cumsum`` ops (mod 2^16) — the
     scan-op mapping SURVEY §5 calls for. Returns a jax array
@@ -159,7 +159,7 @@ def decode_lossless(plan: DecodePlan, device: bool = False,
     ``engine``: "native" (C++ jt_decode_lossless, segment-parallel
     diffs + sequential prediction), "oracle" (this module's python
     reference), or "auto". ``device=True`` additionally routes the
-    reconstruction of predictor-1/2 restart-free scans through the TPU
+    reconstruction of predictor-1/2 restart-free scans through the device
     cumsum path (diffs still decode on the chosen host engine)."""
     if not getattr(plan, "lossless", False):
         raise JPEGError("decode_lossless requires an SOF3 plan")

@@ -2,7 +2,7 @@
 
 Beyond the reference (which panics on SOF2): successive-approximation and
 spectral-selection scans accumulate quantized coefficients across scans; the
-final coefficient tensor then flows through the SAME TPU dense pipeline as
+final coefficient tensor then flows through the SAME device dense pipeline as
 baseline (models/decoder) — progressive only changes the entropy stage.
 
 Semantics follow the spec as implemented by libjpeg's jdphuff (DC first /

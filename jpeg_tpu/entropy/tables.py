@@ -3,10 +3,10 @@
 Parity: reference ``src/jpeg/huffman.rs:13-98`` (``HuffmanCode``,
 ``HuffmanTable::from_size_data_tables``, ``make_code_table`` — JPEG Annex C
 Fig. C.2). The reference stores a sorted code list and does an O(table) linear
-scan per decoded symbol (``src/jpeg/huffman.rs:211-227``). TPU-native design
+scan per decoded symbol (``src/jpeg/huffman.rs:211-227``). This design
 instead builds a flat 2^16-entry lookup table: peek 16 bits -> (value, code
 length) in O(1). The LUT is a dense tensor, so the same structure serves the
-NumPy oracle, the C++ runtime, and the device (VMEM gather) decoder.
+NumPy oracle, the C++ runtime, and the device (gather) decoders.
 """
 
 from __future__ import annotations

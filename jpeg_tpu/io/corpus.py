@@ -1,6 +1,6 @@
 """Corpus utilities: synthetic corpora, loaders, and the batch feeder.
 
-SURVEY.md C1/C10 TPU-equivalents: corpus loader + sharded batch feeder, and
+SURVEY.md C1/C10 equivalents: corpus loader + sharded batch feeder, and
 synthetic 1080p/4K corpora for the benchmark configs (BASELINE.json 4-5).
 """
 

@@ -1,13 +1,13 @@
 """The flagship model: end-to-end baseline-JPEG decode pipeline.
 
 Replaces reference ``JPEGDecoder::decode`` (``src/jpeg/decoder.rs:162-343``)
-with a two-stage TPU-native design (SURVEY.md §7):
+with a two-stage design (SURVEY.md §7):
 
-1. **Entropy stage** (host C++/NumPy or device lane-decoder): bitstream ->
+1. **Entropy stage** (host C++/NumPy): bitstream ->
    ``[total_blocks, 64]`` int32 coefficient tensor, zigzag order, DC
    prediction applied, MCU stream order.
 2. **Dense device stage** (one jitted function): per component, a single
-   ``[N, 64] @ [64, 64]`` MXU matmul performs dequant + unzigzag + IDCT
+   ``[N, 64] @ [64, 64]`` matmul performs dequant + unzigzag + IDCT
    (see :mod:`jpeg_tpu.ops.idct`), then reshape/transpose assembly, chroma
    upsample, and YCbCr->RGB — all fused by XLA.
 
@@ -113,7 +113,7 @@ def _pipeline(coeffs, matrices, geom: PipelineGeometry, rounding: str,
         zip(geom.sampling, geom.component_slot_ranges())
     ):
         comp_coeffs = mcu_view[:, off : off + k].reshape(-1, 64)  # [n_mcu*h*v, 64]
-        # Fused dequant+unzigzag+IDCT: one MXU matmul (f32, full precision
+        # Fused dequant+unzigzag+IDCT: one matmul (f32, full precision
         # for bit-exactness vs the scalar oracle).
         pixels = jax.lax.dot(
             comp_coeffs,
@@ -227,38 +227,6 @@ def decode_coefficients_host(plan: DecodePlan, engine: str = "auto") -> np.ndarr
     return decode_coefficients(plan)
 
 
-def coefficient_planes_from_blocks(coeffs, geom: PipelineGeometry):
-    """Stream-ordered zigzag blocks [total_blocks, 64] -> per-component
-    natural-order int16 coefficient planes in the C++ runtime's padded
-    plane layout (``runtime.native_decode_planes`` parity, shapes per
-    ``ops.pallas_kernels.padded_plane_shapes``). Pure jnp data movement —
-    this is how the hybrid corpus route feeds DEVICE-decoded entropy
-    (entropy/device_kernel.py batch tier) into the same fused Pallas
-    pixel pipeline as host-decoded images, keeping the fast-path output
-    bit-identical regardless of which side decoded the entropy."""
-    from jpeg_tpu.ops.pallas_kernels import padded_plane_shapes
-    from jpeg_tpu.ops.zigzag import NATURAL_TO_ZIGZAG
-
-    shapes = padded_plane_shapes(geom)
-    mcu_view = jnp.asarray(coeffs).reshape(
-        geom.n_mcus, geom.blocks_per_mcu, 64)
-    planes = []
-    for ci, ((h, v), (off, k)) in enumerate(
-            zip(geom.sampling, geom.component_slot_ranges())):
-        c = mcu_view[:, off : off + k]
-        c = c[..., NATURAL_TO_ZIGZAG]  # zigzag -> natural within blocks
-        my, mx = geom.mcus_y, geom.mcus_x
-        c = (c.reshape(my, mx, v, h, 8, 8)
-             .transpose(0, 2, 4, 1, 3, 5)
-             .reshape(my * v * 8, mx * h * 8))
-        rows, cols = shapes[ci]
-        plane = jnp.zeros((rows, cols), jnp.int16)
-        plane = plane.at[: my * v * 8, : mx * h * 8].set(
-            c.astype(jnp.int16))
-        planes.append(plane)
-    return planes
-
-
 def decode_plan(plan: DecodePlan, rounding: str = "truncate",
                 engine: str = "auto", coefficients: np.ndarray | None = None,
                 upsample: str = "replicate", color_space: str = "rgb"):
@@ -288,41 +256,26 @@ def decode_plan(plan: DecodePlan, rounding: str = "truncate",
 
 
 def decode_plan_fast(plan: DecodePlan, rounding: str = "truncate",
-                     interpret: bool | None = None,
                      idct_mode: str = "exact"):
-    """The fast decode path: C++ plane-layout entropy + fused Pallas kernel.
+    """The plane path: C++ plane-layout entropy + the plain-JAX pixel stage
+    (:mod:`jpeg_tpu.ops.pixel`).
 
-    ~3x faster than the compat pipeline on TPU (plane layout kills the
-    block->plane relayout; see ops/pallas_kernels.py). Not bit-exact vs the
-    oracle: the sandwich IDCT's float summation order differs from the fused
-    [64,64] matmul, giving occasional +-1 u8 differences. Use the default
+    Within 1 u8 of the compat pipeline, not bit-exact: the separable IDCT
+    sums in another order than the fused [64, 64] matmul. Use the default
     compat path when bit-exactness vs the reference semantics matters.
 
-    ``idct_mode="approx"`` (the libjpeg JDCT_IFAST analogue): IDCT matmuls
-    at DEFAULT precision — ~1.8x faster kernel, measured max +-2 u8 /
-    >=57 dB PSNR vs the exact kernel on the corpus (BENCH r2 ablation).
+    ``idct_mode="approx"`` runs the IDCT contractions at DEFAULT precision
+    (TF32 on a GPU); its measured error is in ``docs/APPROX_QUALITY.md``.
     """
-    import jax
-
-    from jpeg_tpu.ops.pallas_kernels import decode_planes_fused
+    from jpeg_tpu.ops.pixel import decode_planes, plane_path_supported
     from jpeg_tpu.runtime import native_decode_planes
 
-    if getattr(plan, "lossless", False):
-        # SOF3 has no coefficient planes at all.
+    if (getattr(plan, "lossless", False)
+            or not plane_path_supported(PipelineGeometry.of(plan))):
+        # SOF3 has no coefficient planes; RGB-direct, CMYK/YCCK and 12-bit
+        # streams take the compat pipeline, which handles every color
+        # model and precision.
         return decode_plan(plan, rounding=rounding)
-    if getattr(plan, "color_model", "ycbcr") not in ("ycbcr", "gray"):
-        # The fused kernel bakes in the YCbCr matrix: RGB-direct streams
-        # would come out silently wrong and 4-component CMYK/YCCK plans
-        # don't fit its 3-channel output. Route through the compat
-        # pipeline, which handles every color model.
-        return decode_plan(plan, rounding=rounding)
-    if getattr(plan, "precision", 8) != 8:
-        # 12-bit samples need int32-safe planes and u16 output — the
-        # fused kernel's int16 planes / u8 path is 8-bit; the compat
-        # pipeline handles the extended range.
-        return decode_plan(plan, rounding=rounding)
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
     if plan.progressive:
         planes = progressive_planes(plan)
     elif getattr(plan, "arith_code", False):
@@ -331,12 +284,12 @@ def decode_plan_fast(plan: DecodePlan, rounding: str = "truncate",
         planes = native_decode_arith_planes(plan)
     else:
         planes = native_decode_planes(plan)
-    return decode_planes_fused(planes, plan, rounding, interpret, idct_mode)
+    return decode_planes(planes, plan, rounding, idct_mode)
 
 
 def progressive_planes(plan: DecodePlan) -> list[np.ndarray]:
     """Progressive entropy decode -> int16 coefficient planes in the fast
-    path's plane layout (``jpeg_tpu.runtime.plane_shapes``).
+    path's plane layout (``jpeg_tpu.ops.pixel.plane_shapes``).
 
     When the native path is used, the returned arrays are the runtime's
     per-thread scratch buffers (same ``reuse_buffer`` contract as
@@ -392,18 +345,15 @@ def decode_bytes(data: bytes, rounding: str = "truncate",
     Library-surface parity with reference ``JPEGImage::parse`` +
     ``image_data()`` (``src/jpeg/mod.rs:202,467-477``) — but returns an
     [H, W, 3] tensor rather than a Vec of tuples. ``path="fast"`` selects
-    the plane-layout Pallas pipeline (see :func:`decode_plan_fast`).
+    the plane pipeline (see :func:`decode_plan_fast`).
     ``color_space="ycbcr"`` skips the final color convert and returns the
     level-shifted full-resolution planes (3 channels for YCbCr/gray
     streams, 4 for CMYK/YCCK) — the ML input-pipeline layout.
     """
     plan = parse_jpeg(data)
     if path == "fast" and color_space == "rgb":
-        if plan.color_model in ("ycbcr", "gray"):
-            return np.asarray(decode_plan_fast(plan, rounding=rounding,
-                                               idct_mode=idct_mode))
-        # CMYK/YCCK/RGB-direct: the fused Pallas kernel bakes in the YCbCr
-        # matrix; these rarities route through the compat pipeline.
+        return np.asarray(decode_plan_fast(plan, rounding=rounding,
+                                           idct_mode=idct_mode))
     return np.asarray(decode_plan(plan, rounding=rounding, engine=engine,
                                   upsample=upsample, color_space=color_space))
 

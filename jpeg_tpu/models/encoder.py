@@ -10,7 +10,7 @@ Two entropy engines:
 - ``engine="python"``: pure-Python bit packing (slow, obviously correct);
 - ``engine="native"``: the C++ runtime's per-restart-segment parallel
   encoder (``runtime/native/jpegtpu_enc.cpp``) fed with natural-order
-  coefficient planes — the same layout the TPU forward-DCT path emits.
+  coefficient planes — the same layout the device forward transform emits.
 
 Dense math (color convert, downsample, forward DCT, quantization) is
 vectorized NumPy mirroring the device pipeline's matrix formulation.
@@ -254,7 +254,7 @@ def _entropy_native(comp_blocks_zz, samplings, dc_maps, ac_maps,
                     mcus_x, mcus_y, restart_interval_mcus):
     from jpeg_tpu.runtime import native_encode_scan
 
-    # Natural-order int16 planes (the TPU forward path's output layout).
+    # Natural-order int16 planes (the device forward path's output layout).
     planes = []
     for blocks_zz in comp_blocks_zz:
         rows, cols, _ = blocks_zz.shape
@@ -287,25 +287,20 @@ def encode_rgb_device(rgb: np.ndarray, quality: int = 85,
                       subsampling: tuple[int, int] = (2, 2),
                       restart_interval_mcus: int = 0,
                       grayscale: bool = False,
-                      interpret: bool | None = None,
                       optimize: bool = False) -> bytes:
-    """Encode with the forward transform on the TPU.
+    """Encode with the forward transform on the device.
 
     The dense half (color convert, chroma box downsample, forward DCT,
-    quantization) runs as the fused Pallas encode kernel
-    (:func:`jpeg_tpu.ops.pallas_kernels.fused_plane_encoder`) — the mirror of
-    the decode kernel — emitting quantized int16 coefficient planes that the
-    C++ entropy encoder packs in parallel. Not byte-identical to the NumPy
-    path (float summation order on quantization ties); equivalent quality.
+    quantization) runs as :func:`jpeg_tpu.ops.pixel.forward_planes` — the
+    mirror of the decode pixel stage — emitting quantized int16 coefficient
+    planes that the C++ entropy encoder packs in parallel. Not
+    byte-identical to the NumPy path (float summation order on quantization
+    ties); equivalent quality.
     """
-    import jax
+    import jax.numpy as jnp
 
     from jpeg_tpu.models.decoder import PipelineGeometry
-    from jpeg_tpu.ops.pallas_kernels import (
-        fused_plane_encoder,
-        padded_plane_shapes,
-        plan_inv_quant_patterns,
-    )
+    from jpeg_tpu.ops.pixel import forward_planes_fn, inverse_quant_tables
     from jpeg_tpu.runtime import native_encode_scan
 
     rgb = np.asarray(rgb)
@@ -323,32 +318,15 @@ def encode_rgb_device(rgb: np.ndarray, quality: int = 85,
         width=width, height=height, mcus_x=mcus_x, mcus_y=mcus_y,
         h_max=h_max, v_max=v_max, sampling=tuple(samplings),
     )
-    shapes = padded_plane_shapes(geom)
-    # Component 0 (luma) is at full Y resolution: its padded plane shape is
-    # exactly the planar RGB input shape the kernel expects.
-    rows_pad, w_pad = shapes[0]
-
-    # Host prep: edge-padded planar u8.
-    if grayscale:
-        chans = rgb[None]
-    else:
-        chans = rgb.transpose(2, 0, 1)
-    planar = np.pad(
-        chans, ((0, 0), (0, rows_pad - height), (0, w_pad - width)), mode="edge"
-    )
+    planar = rgb[None] if grayscale else rgb[..., :3].transpose(2, 0, 1)
 
     q_luma = annex_k.scaled_quant_table(annex_k.QUANT_LUMA, quality)
     q_chroma = annex_k.scaled_quant_table(annex_k.QUANT_CHROMA, quality)
     quant_zz = [q_luma] + ([] if grayscale else [q_chroma])
     comp_q = [quant_zz[min(ci, len(quant_zz) - 1)] for ci in range(len(samplings))]
 
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    fn = fused_plane_encoder(geom, interpret)
-    iqp = plan_inv_quant_patterns(comp_q, geom)
-    import jax.numpy as jnp
-
-    planes = fn(jnp.asarray(planar), *[jnp.asarray(q) for q in iqp])
+    planes = forward_planes_fn(geom)(jnp.asarray(planar),
+                                     jnp.asarray(inverse_quant_tables(comp_q)))
     planes = [np.asarray(p) for p in planes]
 
     comp_blocks_zz = None

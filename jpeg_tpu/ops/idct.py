@@ -1,7 +1,7 @@
-"""DCT math, TPU-first.
+"""DCT math as linear algebra.
 
 Parity: reference ``src/transform.rs`` (naive O(d^4) scalar loops). Here the
-8x8 IDCT is expressed as linear algebra so it runs on the MXU:
+8x8 IDCT is expressed as linear algebra so it runs as matrix products:
 
     spatial = A^T F A          (A = 1-D DCT-II basis, 8x8)
     flat:   out = f @ kron(A, A)
@@ -12,7 +12,7 @@ single precomputed [64, 64] matrix* per quant table:
 
     pixels[N, 64] = coeffs_zigzag[N, 64] @ (diag(q_zz) @ P @ kron(A, A))
 
-One big matmul per component: no gathers, no per-block loops, pure MXU work.
+One big matmul per component: no gathers, no per-block loops.
 The matrices are built once in float64 on host and cast down.
 """
 

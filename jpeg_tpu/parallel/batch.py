@@ -19,11 +19,8 @@ from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map  # jax >= 0.7
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 from jpeg_tpu.models.decoder import PipelineGeometry, _pipeline
 
@@ -79,34 +76,26 @@ def decode_batch_with_metrics(coeffs, matrices, geom: PipelineGeometry,
     return jax.jit(fn)(jnp.asarray(coeffs), jnp.asarray(matrices))
 
 
-def decode_batch_fast(planes_batch, qpats_batch, geom: PipelineGeometry,
+def decode_batch_fast(planes_batch, q_batch, geom: PipelineGeometry,
                       rounding: str = "truncate", mesh: Mesh | None = None,
-                      interpret: bool | None = None,
                       idct_mode: str = "exact"):
-    """Batched fast path: vmap of the fused Pallas plane kernel, optionally
-    sharded over the ``data`` mesh axis.
+    """Batched plane path: the pixel stage (:mod:`jpeg_tpu.ops.pixel`)
+    mapped over a batch, optionally sharded over the ``data`` mesh axis.
 
     ``planes_batch``: per-component [B, rows_c, stride_c] int16;
-    ``qpats_batch``: per-component [B, qrows, qcols] f32.
-    Returns planar u8 [B, 3, H_pad, W_pad]. ``idct_mode="approx"`` selects
-    the DEFAULT-precision IDCT matmuls (quality gate: see
-    docs/APPROX_QUALITY.md — measured max |diff| <= 2 u8, PSNR >= 50 dB).
+    ``q_batch``: [B, ncomp, 8, 8] f32 natural-order dequant tables.
+    Returns [B, H, W, 3] u8. ``idct_mode="approx"`` runs the IDCT at
+    DEFAULT precision (quality: docs/APPROX_QUALITY.md).
     """
-    import jax as _jax
+    from jpeg_tpu.ops.pixel import planes_to_rgb_fn
 
-    from jpeg_tpu.ops.pallas_kernels import fused_plane_decoder
-
-    if interpret is None:
-        interpret = _jax.default_backend() == "cpu"
-    fn = _jax.vmap(fused_plane_decoder(geom, rounding, interpret, idct_mode))
-    if mesh is None:
-        run = jax.jit(fn)
-    else:
+    fn = planes_to_rgb_fn(geom, rounding, idct_mode, batched=True)
+    planes = [jnp.asarray(p) for p in planes_batch]
+    q = jnp.asarray(q_batch)
+    if mesh is not None:
         shard = NamedSharding(mesh, P("data"))
-        n_in = len(planes_batch) + len(qpats_batch)
-        run = jax.jit(fn, in_shardings=(shard,) * n_in, out_shardings=shard)
-    return run(*[jnp.asarray(p) for p in planes_batch],
-               *[jnp.asarray(q) for q in qpats_batch])
+        planes, q = jax.device_put((planes, q), shard)
+    return fn(planes, q)
 
 
 def decode_batch_rows_sp(coeffs, matrices, geom: PipelineGeometry, mesh: Mesh,
@@ -147,81 +136,56 @@ def decode_batch_rows_sp(coeffs, matrices, geom: PipelineGeometry, mesh: Mesh,
     return jax.jit(fn)(jnp.asarray(coeffs), jnp.asarray(matrices))
 
 
-def decode_batch_rows_sp_fast(planes_batch, qpats_batch,
+def decode_batch_rows_sp_fast(planes_batch, q_batch,
                               geom: PipelineGeometry, mesh: Mesh,
-                              rounding: str = "truncate",
-                              interpret: bool | None = None):
-    """Fast-path (fused Pallas kernel) batch decode sharded over BOTH axes:
-    images over ``data``, horizontal plane bands over ``seg``.
+                              rounding: str = "truncate"):
+    """Plane-path batch decode sharded over BOTH axes: images over
+    ``data``, horizontal plane bands over ``seg``.
 
-    Coefficient planes slice cleanly along rows (bands are independent), so
-    each seg shard runs the kernel with a local geometry and the planar u8
-    output stays row-sharded — no collectives in the decode itself. Requires
-    ``mcus_y`` divisible by (band_mcus * n_seg) so shards hold whole kernel
-    bands (pad images otherwise).
+    Coefficient planes slice cleanly along MCU rows (bands are
+    independent), so each seg shard runs the pixel stage with a local
+    geometry and the u8 output stays row-sharded — no collectives in the
+    decode itself. Same constraints as :func:`decode_batch_rows_sp`.
     """
-    import jax as _jax
+    from jpeg_tpu.ops.pixel import planes_to_rgb
 
-    from jpeg_tpu.ops.pallas_kernels import band_mcus, fused_plane_decoder
-
-    if interpret is None:
-        interpret = _jax.default_backend() == "cpu"
     n_seg = mesh.shape["seg"]
-    bm = band_mcus(geom)
-    if geom.mcus_y % (bm * n_seg):
+    if geom.mcus_y % n_seg or geom.height != geom.mcus_y * 8 * geom.v_max:
         raise ValueError(
-            f"fast row sharding needs mcus_y ({geom.mcus_y}) divisible by "
-            f"band_mcus*n_seg ({bm}*{n_seg})"
+            f"row sharding needs mcus_y ({geom.mcus_y}) divisible by n_seg "
+            f"({n_seg}) and full MCU rows (height {geom.height})"
         )
     local = dataclasses.replace(
-        geom,
-        mcus_y=geom.mcus_y // n_seg,
-        height=(geom.mcus_y // n_seg) * 8 * geom.v_max,
+        geom, mcus_y=geom.mcus_y // n_seg, height=geom.height // n_seg
     )
-    fn = _jax.vmap(fused_plane_decoder(local, rounding, interpret))
-
+    fn = jax.vmap(partial(planes_to_rgb, geom=local, rounding=rounding))
     shard = shard_map(
         fn,
         mesh=mesh,
         # planes: [B, rows_c, cols_c] -> batch over data, rows over seg;
-        # qpats replicated over seg (same dequant tile per band).
-        in_specs=tuple([P("data", "seg", None)] * len(planes_batch)
-                       + [P("data", None, None)] * len(qpats_batch)),
-        out_specs=P("data", None, "seg", None),
-        # pallas_call out_shapes carry no vma info; sharding is fully
-        # specified by the specs above.
-        check_vma=False,
+        # dequant tables replicated over seg.
+        in_specs=([P("data", "seg", None)] * len(planes_batch),
+                  P("data", None, None, None)),
+        out_specs=P("data", "seg", None, None),
     )
-    return jax.jit(shard)(
-        *[jnp.asarray(p) for p in planes_batch],
-        *[jnp.asarray(q) for q in qpats_batch],
-    )
+    return jax.jit(shard)([jnp.asarray(p) for p in planes_batch],
+                          jnp.asarray(q_batch))
 
 
-def encode_batch_device(rgb_planar_batch, inv_qpats_batch,
-                        geom: PipelineGeometry, mesh: Mesh | None = None,
-                        interpret: bool | None = None):
-    """Batched device forward transform (the encoder's dense half): vmap of
-    the fused Pallas encode kernel, optionally sharded over ``data``.
+def encode_batch_device(rgb_planar_batch, inv_q_batch,
+                        geom: PipelineGeometry, mesh: Mesh | None = None):
+    """Batched device forward transform (the encoder's dense half):
+    :func:`jpeg_tpu.ops.pixel.forward_planes` mapped over a batch,
+    optionally sharded over ``data``.
 
-    ``rgb_planar_batch``: [B, 3|1, H_pad, W_pad] u8 (edge-padded planar);
-    ``inv_qpats_batch``: per-component [B, qrows, qcols] f32 reciprocal
-    quant tiles. Returns per-component int16 coefficient planes
-    [B, rows_c, stride_c] ready for the parallel entropy encoder.
+    ``rgb_planar_batch``: [B, 3|1, H, W] u8 planar;
+    ``inv_q_batch``: [B, ncomp, 8, 8] f32 reciprocal quant tables. Returns
+    per-component int16 coefficient planes [B, rows_c, stride_c] ready for
+    the parallel entropy encoder.
     """
-    import jax as _jax
+    from jpeg_tpu.ops.pixel import forward_planes_fn
 
-    from jpeg_tpu.ops.pallas_kernels import fused_plane_encoder
-
-    if interpret is None:
-        interpret = _jax.default_backend() == "cpu"
-    fn = _jax.vmap(fused_plane_encoder(geom, interpret))
-    if mesh is None:
-        run = jax.jit(fn)
-    else:
-        shard = NamedSharding(mesh, P("data"))
-        n_in = 1 + len(inv_qpats_batch)
-        run = jax.jit(fn, in_shardings=(shard,) * n_in,
-                      out_shardings=(shard,) * len(geom.sampling))
-    return run(jnp.asarray(rgb_planar_batch),
-               *[jnp.asarray(q) for q in inv_qpats_batch])
+    args = (jnp.asarray(rgb_planar_batch), jnp.asarray(inv_q_batch))
+    if mesh is not None:
+        args = jax.device_put(args, NamedSharding(mesh, P("data")))
+    return forward_planes_fn(geom, batched=True)(*args)

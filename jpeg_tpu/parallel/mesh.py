@@ -1,7 +1,7 @@
 """Device mesh construction helpers.
 
 The reference is single-threaded (SURVEY.md §2: parallelism ABSENT); this
-layer is designed from scratch for TPU scale-out. Axes:
+layer is designed from scratch for multi-device scale-out. Axes:
 
 - ``data``: images across chips (pure data parallelism — no in-decode
   collectives; the JPEG analogue of DP).

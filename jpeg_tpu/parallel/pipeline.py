@@ -1,11 +1,11 @@
-"""Pipelined corpus decode: host entropy workers feeding the TPU.
+"""Pipelined corpus decode: host entropy workers feeding the device.
 
 Production shape of the engine (BASELINE.json config 4: "batched 1080p corpus
 decode with restart-interval parallel Huffman on 1 host"): the bit-serial
 entropy work runs on all host cores (ctypes releases the GIL, so a thread
-pool scales), while the dense coefficient->pixel stage runs on the chip; the
-two stages overlap, so steady-state throughput is min(host rate, device
-rate), not their sum.
+pool scales), and the dense coefficient->pixel stage runs on the device.
+Within one ``decode_all`` call the host stage runs first, then one batched
+device call per geometry bucket.
 
 Per-image error isolation per SURVEY.md §5: a malformed image yields an error
 record, never kills the batch.
@@ -34,8 +34,8 @@ class DecodeResult:
 class CorpusDecoder:
     """Thread-pooled decode of many JPEGs.
 
-    ``path="fast"`` uses the plane-layout Pallas pipeline (TPU), ``"compat"``
-    the bit-exact XLA pipeline. Geometry-keyed jit caches mean a homogeneous
+    ``path="fast"`` uses the plane pipeline (:mod:`jpeg_tpu.ops.pixel`),
+    ``"compat"`` the bit-exact block pipeline. Geometry-keyed jit caches mean a homogeneous
     corpus compiles once.
     """
 
@@ -45,7 +45,7 @@ class CorpusDecoder:
         self.path = path
         self.rounding = rounding
         self.idct_mode = idct_mode
-        self._pool = None  # persistent: see BatchedCorpusDecoder._pools
+        self._pool = None  # persistent: see BatchedCorpusDecoder.__init__
 
     def _get_pool(self):
         if self._pool is None:
@@ -85,64 +85,42 @@ class CorpusDecoder:
 class BatchedCorpusDecoder:
     """Geometry-bucketed batch decode: the sharded batch feeder.
 
-    Production shape for large homogeneous corpora (SURVEY.md C1
-    TPU-equivalent): images are parsed and entropy-decoded on host workers,
-    grouped by pipeline geometry, and each group runs through ONE batched
-    (vmap) fused-kernel invocation — optionally sharded over a device mesh's
+    Production shape for large homogeneous corpora (SURVEY.md C1): images
+    are parsed and entropy-decoded on host workers, grouped by pipeline
+    geometry, and each group runs through ONE batched (vmap) pixel-stage
+    invocation — optionally sharded over a device mesh's
     ``data`` axis. Mixed-geometry corpora form multiple buckets; odd images
     fall back to single-image decode. Per-image error isolation throughout.
     """
 
     def __init__(self, workers: int | None = None, rounding: str = "truncate",
-                 mesh=None, hybrid_device: bool = False,
-                 device_batch: int | None = None,
-                 device_vmem_budget: int | None = None,
-                 idct_mode: str = "exact",
-                 _device_interpret: bool = False):
+                 mesh=None, idct_mode: str = "exact"):
         self.workers = workers or os.cpu_count() or 1
         self.rounding = rounding
         self.mesh = mesh
-        # idct_mode="approx" (opt-in): DEFAULT-precision IDCT matmuls in
-        # the fused pixel kernel — ~2x kernel throughput; quality gated
-        # and measured in docs/APPROX_QUALITY.md (max |diff| <= 2 u8 vs
-        # exact, PSNR >= 50 dB across the corpus matrix). Entropy decode
-        # and all non-fused routes (12-bit, lossless, CMYK) stay exact.
+        # idct_mode="approx" (opt-in): DEFAULT-precision IDCT contractions
+        # in the pixel stage; measured error in docs/APPROX_QUALITY.md.
+        # Entropy decode and the compat routes (12-bit, lossless, CMYK)
+        # stay exact.
         self.idct_mode = idct_mode
-        # Cooperative host+device entropy (round-4 hybrid rung, round-5
-        # windowed tier): a device thread claims whole batches of images
-        # from the BACK of the work list and entropy-decodes them through
-        # the windowed in-kernel chain (entropy/device_window.py) while
-        # host workers drain the front — measured on-chip: the
-        # otherwise-idle chip adds ~150 fps of 4K entropy beside a ~200
-        # fps 4-core host tier. Ineligible or erroring images (including
-        # per-lane window overflows) fall back to the host path
-        # bit-exactly. device_batch=None auto-sizes each claim to the
-        # VMEM budget from the corpus geometry (suggest_window_batch).
-        self.hybrid_device = hybrid_device
-        self.device_batch = device_batch
-        self.device_vmem_budget = device_vmem_budget
-        self._device_interpret = _device_interpret
         # Persistent worker pools, created lazily and REUSED across
         # decode_all calls: a fresh ThreadPoolExecutor per call means
         # fresh pthreads per corpus chunk, and every new thread brings a
         # new glibc arena + per-thread native scratch — measured ~1.3 GB
         # of unreclaimable RSS growth PER 32-image 4K chunk on the
-        # endurance run (tools/endurance.py), with zero live Python/jax
+        # endurance run, with zero live Python/jax
         # arrays. Stable threads -> stable arenas -> flat RSS.
         self._pool = None
-        self._dev_pool = None
 
-    def _pools(self):
-        from concurrent.futures import ThreadPoolExecutor as _TPE
-
+    def _get_pool(self):
         if self._pool is None:
-            self._pool = _TPE(max_workers=self.workers)
-            self._dev_pool = _TPE(max_workers=1)
-        return self._pool, self._dev_pool
+            self._pool = ThreadPoolExecutor(max_workers=self.workers)
+        return self._pool
 
     def _entropy_one(self, path_or_bytes):
         from jpeg_tpu.io.container import parse_jpeg
         from jpeg_tpu.models.decoder import PipelineGeometry
+        from jpeg_tpu.ops.pixel import plane_path_supported
         from jpeg_tpu.runtime import native_decode_planes
 
         name = path_or_bytes if isinstance(path_or_bytes, str) else "<bytes>"
@@ -153,25 +131,16 @@ class BatchedCorpusDecoder:
             else:
                 data = path_or_bytes
             plan = parse_jpeg(data)
-            if getattr(plan, "lossless", False) or plan.precision != 8:
-                # Lossless (no coefficient planes at all) and 12-bit
-                # (u16 output) route through the compat decode inline —
-                # the fused batch kernel is the 8-bit DCT path.
-                from jpeg_tpu.models.decoder import decode_plan
-
-                import numpy as _np
-
-                rgb = _np.asarray(decode_plan(plan, rounding=self.rounding))
-                return (name, plan, "compat", rgb, None)
-            if plan.color_model not in ("ycbcr", "gray"):
-                # CMYK/YCCK/RGB-direct: the fused batch kernel bakes in the
-                # YCbCr matrix — decode these rarities inline via the compat
+            geom = PipelineGeometry.of(plan)
+            if (getattr(plan, "lossless", False)
+                    or not plane_path_supported(geom)):
+                # Lossless (no coefficient planes at all), 12-bit (u16
+                # output) and CMYK/YCCK/RGB-direct (the plane path bakes in
+                # the YCbCr matrix) decode inline through the compat
                 # pipeline ("compat" sentinel geometry, no bucketing).
                 from jpeg_tpu.models.decoder import decode_plan
 
-                import numpy as _np
-
-                rgb = _np.asarray(decode_plan(plan, rounding=self.rounding))
+                rgb = np.asarray(decode_plan(plan, rounding=self.rounding))
                 return (name, plan, "compat", rgb, None)
             if plan.progressive:
                 from jpeg_tpu.models.decoder import progressive_planes
@@ -180,8 +149,7 @@ class BatchedCorpusDecoder:
                 # scratch buffer (same reuse contract as
                 # native_decode_planes): copy before this worker thread
                 # decodes another same-geometry image, or the stored
-                # planes are silently overwritten (found by
-                # test_hybrid_device_corpus; was a rare flake in
+                # planes are silently overwritten (was a rare flake in
                 # test_mixed_corpus_stress).
                 planes = [p.copy() for p in progressive_planes(plan)]
             elif getattr(plan, "arith_code", False):
@@ -196,185 +164,15 @@ class BatchedCorpusDecoder:
             else:
                 planes = [p.copy() for p in
                           native_decode_planes(plan, n_threads=1)]
-            return (name, plan, PipelineGeometry.of(plan), planes, None)
+            return (name, plan, geom, planes, None)
         except Exception as e:  # noqa: BLE001 — isolation boundary
             return (name, None, None, None, f"{type(e).__name__}: {e}")
 
-    def _read(self, path_or_bytes) -> bytes:
-        if isinstance(path_or_bytes, str):
-            with open(path_or_bytes, "rb") as f:
-                return f.read()
-        return path_or_bytes
-
-    def _device_eligible(self, plan) -> bool:
-        return (not getattr(plan, "lossless", False)
-                and not getattr(plan, "arith_code", False)
-                and plan.precision == 8
-                and plan.color_model in ("ycbcr", "gray")
-                and not plan.progressive
-                and len(plan.segments) >= 2)
-
-    def _hybrid_parse(self, items):
-        """Shared-queue parse/entropy stage: host workers drain the FRONT
-        (native C++ tier), one device thread claims ``device_batch``-sized
-        groups from the BACK and decodes their entropy in a single
-        in-kernel launch, feeding coefficients straight into the compat
-        XLA pixel pipeline on-device. Any ineligible, table-mismatched or
-        erroring image falls back to the exact host route."""
-        import threading
-        from collections import deque
-
-        from jpeg_tpu.entropy.device_window import (
-            _REAL_VMEM_BUDGET,
-            decode_coefficients_device5_batch,
-            fit_window_plans,
-            suggest_window_batch,
-        )
-        from jpeg_tpu.io.container import parse_jpeg
-        from jpeg_tpu.models.decoder import (
-            PipelineGeometry,
-            coefficient_planes_from_blocks,
-        )
-
-        vmem_budget = self.device_vmem_budget or _REAL_VMEM_BUDGET
-        device_batch = self.device_batch
-        if device_batch is None:
-            # Auto-size each device claim to the VMEM budget from the back
-            # item's geometry (the first one the device would claim); any
-            # parse failure just means the host route handles that item.
-            # Claims are re-fit to the ACTUAL claimed plans' geometry
-            # before launch (fit_window_plans), so this probe only sets the
-            # claim granularity.
-            try:
-                probe = parse_jpeg(self._read(items[-1]))
-                device_batch = (
-                    suggest_window_batch(probe, vmem_budget=vmem_budget)
-                    if self._device_eligible(probe) else 6)
-            except Exception:  # noqa: BLE001 — host fallback decides later
-                device_batch = 6
-
-        parsed: list = [None] * len(items)
-        work = deque(range(len(items)))
-        lk = threading.Lock()
-
-        def pop_front():
-            with lk:
-                return work.popleft() if work else None
-
-        def pop_back_batch(k):
-            # Tail guard: leave at least two batches' worth for the host —
-            # with one launch kept in flight the device can hold TWO
-            # unfinalized claims, and a straggling launch must not extend
-            # the wall past the host side's remaining work.
-            with lk:
-                if len(work) >= 3 * k:
-                    return [work.pop() for _ in range(k)]
-                return None
-
-        def host_worker():
-            while (i := pop_front()) is not None:
-                parsed[i] = self._entropy_one(items[i])
-
-        def fallback(idxs):
-            for i in idxs:
-                parsed[i] = self._entropy_one(items[i])
-
-        def finalize(idxs, plans, coeffs, err):
-            import numpy as _np
-
-            err = _np.asarray(err)  # sync point: the launch completes here
-            off = 0
-            for i, p, c in zip(idxs, plans, coeffs):
-                seg_err = err[off : off + len(p.segments)].any()
-                off += len(p.segments)
-                if seg_err:
-                    fallback([i])
-                    continue
-                # Same bucketed fused-kernel route as host-decoded
-                # images: relayout the device coefficients into the
-                # native plane layout ON DEVICE — output stays
-                # bit-identical regardless of who decoded the entropy.
-                geom = PipelineGeometry.of(p)
-                planes = coefficient_planes_from_blocks(c, geom)
-                name = items[i] if isinstance(items[i], str) else "<bytes>"
-                parsed[i] = (name, p, geom, planes, None)
-
-        def finalize_guarded(pend):
-            # finalize() holds the deferred sync point (to_host=False), so
-            # an async XLA/launch error surfaces HERE, not at dispatch —
-            # it must fall back to the exact host route like the dispatch
-            # handler does, or the device thread dies with parsed[i]=None
-            # for the claimed images (advisor r4 medium).
-            if pend is None:
-                return
-            try:
-                finalize(*pend)
-            except Exception:  # noqa: BLE001 — exact host fallback
-                fallback(pend[0])
-
-        def device_side():
-            # Keep ONE launch in flight (jax async dispatch): parsing and
-            # dispatching batch N+1 before syncing batch N hides the
-            # dispatch/sync gap — measured +36% (4K) / +55% (1080p)
-            # device entropy (tools/probe_launch_pipelining.py).
-            pending = None
-            while (idxs := pop_back_batch(device_batch)) is not None:
-                plans = []
-                try:
-                    for i in idxs:
-                        plans.append(parse_jpeg(self._read(items[i])))
-                    if not all(self._device_eligible(p) for p in plans):
-                        raise ValueError("ineligible for device route")
-                    # Re-fit the claim to the claimed plans' own geometry:
-                    # the launch sizes lanes from the whole batch, so
-                    # images with more segments than the auto-batch probe
-                    # would otherwise push the launch past the calibrated
-                    # VMEM budget (advisor r4).
-                    chunks = fit_window_plans(plans, vmem_budget=vmem_budget)
-                except Exception:  # noqa: BLE001 — exact host fallback
-                    fallback(idxs)
-                    continue
-                off = 0
-                for chunk in chunks:
-                    cidx = idxs[off : off + len(chunk)]
-                    off += len(chunk)
-                    try:
-                        # v5 windowed tier (entropy/device_window.py):
-                        # 2.5x the v4 resident-word kernel at equal batch
-                        # on-chip (4K batch-6: 146.6 vs 58.8 fps, mxu
-                        # gather, tools/probe_window_kernel.py) and no
-                        # resident-word VMEM wall. Per-lane window
-                        # overflow lanes fall back to the exact host
-                        # route via the err vector like any decode error.
-                        coeffs, err = decode_coefficients_device5_batch(
-                            chunk, interpret=self._device_interpret,
-                            gather="mxu", to_host=False)
-                    except Exception:  # noqa: BLE001 — exact host fallback
-                        fallback(cidx)
-                        continue
-                    finalize_guarded(pending)
-                    pending = (cidx, chunk, coeffs, err)
-            finalize_guarded(pending)
-
-        pool, dev_pool = self._pools()
-        dev_fut = dev_pool.submit(device_side)
-        host_futs = [pool.submit(host_worker) for _ in range(self.workers)]
-        for f in host_futs:
-            f.result()
-        dev_fut.result()
-        return parsed
-
     def decode_all(self, items) -> list[DecodeResult]:
-        import numpy as np_
-
-        from jpeg_tpu.ops.pallas_kernels import plan_quant_patterns
+        from jpeg_tpu.ops.pixel import plan_quant_tables
         from jpeg_tpu.parallel.batch import decode_batch_fast
 
-        if self.hybrid_device:
-            parsed = self._hybrid_parse(items)
-        else:
-            pool, _ = self._pools()
-            parsed = list(pool.map(self._entropy_one, items))
+        parsed = list(self._get_pool().map(self._entropy_one, items))
 
         results: list[DecodeResult | None] = [None] * len(parsed)
         buckets: dict = {}
@@ -395,13 +193,11 @@ class BatchedCorpusDecoder:
                                 (idxs[spill_from:], None)):
                 if not chunk:
                     continue
-                bp = [np_.stack([parsed[i][3][c] for i in chunk])
+                bp = [np.stack([parsed[i][3][c] for i in chunk])
                       for c in range(len(geom.sampling))]
-                bq = [np_.stack([plan_quant_patterns(parsed[i][1], geom)[c]
-                                 for i in chunk])
-                      for c in range(len(geom.sampling))]
+                bq = np.stack([plan_quant_tables(parsed[i][1]) for i in chunk])
                 try:
-                    planar = np_.asarray(decode_batch_fast(
+                    rgb = np.asarray(decode_batch_fast(
                         bp, bq, geom, self.rounding, mesh=mesh,
                         idct_mode=self.idct_mode))
                 except Exception as e:  # noqa: BLE001 — bucket isolation
@@ -410,8 +206,6 @@ class BatchedCorpusDecoder:
                             parsed[i][0], None,
                             error=f"{type(e).__name__}: {e}")
                     continue
-                rgb = planar[:, :, : geom.height, : geom.width].transpose(
-                    0, 2, 3, 1)
                 for b, i in enumerate(chunk):
                     results[i] = DecodeResult(parsed[i][0], rgb[b])
         return results  # type: ignore[return-value]

@@ -18,18 +18,16 @@ import time
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
-# JPEG_TPU_ASAN=1 loads the AddressSanitizer builds (requires LD_PRELOAD of
-# libasan; used by the sanitizer sweep in tools/).
+_BUILD_ROOT = os.path.join(_NATIVE_DIR, "build")
+_PGO_TRAIN = os.path.join(_NATIVE_DIR, "..", "..", "..", "tools",
+                          "pgo_train.py")
+# JPEG_TPU_ASAN=1 loads the AddressSanitizer builds from build/ (requires
+# LD_PRELOAD of libasan; used by the sanitizer sweep in tools/).
 _ASAN = os.environ.get("JPEG_TPU_ASAN") == "1"
-_SO_PATH = os.path.join(
-    _NATIVE_DIR, "build",
-    "libjpegtpu_asan.so" if _ASAN else "libjpegtpu.so")
-_ENC_SO_PATH = os.path.join(
-    _NATIVE_DIR, "build",
-    "libjpegtpu_enc_asan.so" if _ASAN else "libjpegtpu_enc.so")
 
 _lib = None
 _enc_lib = None
+_build_key = None
 _out_buffers: dict = {}  # (thread id, shape key) -> reusable output buffer
 
 
@@ -49,28 +47,85 @@ class NativeDecodeError(ValueError):
         self.segment = segment
 
 
-def _build() -> None:
-    src = os.path.join(_NATIVE_DIR, "jpegtpu.cpp")
-    mk = os.path.join(_NATIVE_DIR, "Makefile")
-    pgo = os.path.join(_NATIVE_DIR, "..", "..", "..",
-                       "tools", "pgo_train.py")
-    newest = max(os.path.getmtime(src), os.path.getmtime(mk),
-                 os.path.getmtime(pgo) if os.path.exists(pgo) else 0.0)
-    if os.path.exists(_SO_PATH) and os.path.getmtime(_SO_PATH) >= newest:
-        return
-    subprocess.run(
-        ["make", "-s", "-C", _NATIVE_DIR, "build/libjpegtpu.so"],
-        check=True,
-        capture_output=True,
-    )
+def _cpu_model() -> str:
+    """The CPU's model name and feature flags (what ``-march=native``
+    compiles for)."""
+    import platform
+
+    found = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key = line.split(":", 1)[0].strip().lower()
+                if key in ("model name", "flags", "features") and key not in found:
+                    found[key] = line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return " | ".join([platform.machine()] + sorted(found.values()))
+
+
+def build_key() -> str:
+    """Key of the native build for this host: a hash of the C++ sources,
+    the Makefile, the PGO training script, the compiler and its flags, the
+    compiler's version and the CPU model and features. The libraries live in
+    ``build/<key>/``, so a build made for another CPU (``-march=native``)
+    or from other sources is never loaded."""
+    global _build_key
+    if _build_key is not None:
+        return _build_key
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in ("jpegtpu.cpp", "jpegtpu_enc.cpp", "Makefile"):
+        with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
+            h.update(f.read())
+    if os.path.exists(_PGO_TRAIN):
+        with open(_PGO_TRAIN, "rb") as f:
+            h.update(f.read())
+    cxx = os.environ.get("CXX", "g++")
+    version = subprocess.run([cxx, "--version"], check=True,
+                             capture_output=True, text=True).stdout
+    for part in (cxx, os.environ.get("CXXFLAGS", ""), version, _cpu_model()):
+        h.update(b"\0" + part.encode())
+    _build_key = h.hexdigest()[:16]
+    return _build_key
+
+
+def _lib_path(name: str) -> str:
+    """Path of a native library, building ``build/<key>/`` on first use.
+    The build runs in a private directory that is renamed into place, so
+    concurrent processes never load a half-written library."""
+    if _ASAN:
+        return os.path.join(_BUILD_ROOT, name.replace(".so", "_asan.so"))
+    out = os.path.join(_BUILD_ROOT, build_key())
+    path = os.path.join(out, name)
+    if os.path.exists(path):
+        return path
+    import shutil
+
+    tmp = f"{out}.tmp{os.getpid()}.{threading.get_ident()}"
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        done = subprocess.run(
+            ["make", "-s", "-C", _NATIVE_DIR, f"OUT={tmp}", "all"],
+            capture_output=True, text=True)
+        if done.returncode:
+            raise OSError(f"native build failed ({done.returncode}): "
+                          f"{done.stderr[-2000:]}")
+        os.rename(tmp, out)
+    except OSError:
+        if not os.path.exists(path):  # another process did not win the race
+            raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return path
 
 
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    _build()
-    lib = ctypes.CDLL(_SO_PATH)
+    lib = ctypes.CDLL(_lib_path("libjpegtpu.so"))
     _configure(lib)
     _lib = lib
     return lib
@@ -221,15 +276,15 @@ def _load_enc() -> ctypes.CDLL:
     global _enc_lib
     if _enc_lib is not None:
         return _enc_lib
-    src = os.path.join(_NATIVE_DIR, "jpegtpu_enc.cpp")
-    if not os.path.exists(_ENC_SO_PATH) or os.path.getmtime(
-        _ENC_SO_PATH
-    ) < os.path.getmtime(src):
-        subprocess.run(
-            ["make", "-s", "-C", _NATIVE_DIR, "build/libjpegtpu_enc.so"],
-            check=True, capture_output=True,
-        )
-    lib = ctypes.CDLL(_ENC_SO_PATH)
+    lib = ctypes.CDLL(_lib_path("libjpegtpu_enc.so"))
+    _configure_enc(lib)
+    _enc_lib = lib
+    return lib
+
+
+def _configure_enc(lib: ctypes.CDLL) -> None:
+    """Declare ctypes signatures on an encode library handle (also used by
+    the PGO training step, which loads the library it is building)."""
     u8p = ctypes.POINTER(ctypes.c_uint8)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     i64p = ctypes.POINTER(ctypes.c_int64)
@@ -255,8 +310,6 @@ def _load_enc() -> ctypes.CDLL:
         u8p, ctypes.c_int64, i64p,
         ctypes.c_int32,
     ]
-    _enc_lib = lib
-    return lib
 
 
 def native_encode_scan(planes, slots, comp_h, comp_v, mcus_x, n_mcus,
@@ -520,28 +573,13 @@ def native_decode_coefficients(plan, n_threads: int | None = None,
     return out
 
 
-_PLANE_TILE_W = int(  # must match jpeg_tpu.ops.pallas_kernels.TILE_W
-    os.environ.get("JT_TILE_W", "256"))
-_PLANE_BAND_ROWS = int(  # must match pallas_kernels.BAND_ROWS
-    os.environ.get("JT_BAND_ROWS", "128"))
-
-
 def plane_shapes(plan) -> list[tuple[int, int]]:
-    """Padded [rows, stride] of each component's coefficient plane.
+    """[rows, stride] of each component's coefficient plane: the pixel
+    stage's layout (:func:`jpeg_tpu.ops.pixel.plane_shapes`)."""
+    from jpeg_tpu.ops.pixel import plane_shapes as _layout
 
-    Strides padded to the fused kernel's column-tile width (one Y tile maps
-    to whole chroma tiles); rows padded to whole BAND_ROWS bands (full-height
-    MXU matmuls). Matches ``jpeg_tpu.ops.pallas_kernels.padded_plane_shapes``
-    (enforced by test_plane_shapes_alignment); pad region stays zero.
-    """
-    h_max = max(c.h for c in plan.components)
-    v_max = max(c.v for c in plan.components)
-    base = -(-plan.mcus_x * h_max * 8 // _PLANE_TILE_W) * _PLANE_TILE_W
-    bm = _PLANE_BAND_ROWS // (8 * v_max)
-    nb = -(-plan.mcus_y // bm)
-    return [
-        (nb * bm * c.v * 8, base * c.h // h_max) for c in plan.components
-    ]
+    return _layout(plan.mcus_x, plan.mcus_y,
+                   [(c.h, c.v) for c in plan.components])
 
 
 # Reused-buffer zeroing strategy for the restart plane path: 2 = bulk
@@ -556,7 +594,10 @@ _REUSE_PREZERO = int(os.environ.get("JT_PREZERO_MODE", "2"))
 
 _spec_tuner: dict = {}
 _spec_tuner_lock = threading.Lock()
-_SPEC_TUNER_PATH = os.path.join(_NATIVE_DIR, "build", "spec_tuner.json")
+def _spec_tuner_path() -> str:
+    # Beside the libraries it tuned: a build for other sources, flags or
+    # another CPU (another build_key) starts from no persisted choices.
+    return os.path.join(_BUILD_ROOT, build_key(), "spec_tuner.json")
 
 
 def _spec_key(plan):
@@ -565,35 +606,30 @@ def _spec_key(plan):
 
 
 def _spec_persist_key(key) -> str:
-    # Keyed additionally on the .so build (a perf-changing rebuild
-    # invalidates old tunings) and the core count.
-    try:
-        so_m = int(os.path.getmtime(_SO_PATH))
-    except OSError:
-        so_m = 0
-    return f"{key}|cores={os.cpu_count()}|so={so_m}"
+    return f"{key}|cores={os.cpu_count()}"
 
 
 def _spec_persist_load(key):
     try:
-        with open(_SPEC_TUNER_PATH) as f:
+        with open(_spec_tuner_path()) as f:
             return json.load(f).get(_spec_persist_key(key))
     except (OSError, ValueError):
         return None
 
 
 def _spec_persist_store(key, chosen: int) -> None:
+    path = _spec_tuner_path()
     try:
         try:
-            with open(_SPEC_TUNER_PATH) as f:
+            with open(path) as f:
                 d = json.load(f)
         except (OSError, ValueError):
             d = {}
         d[_spec_persist_key(key)] = chosen
-        tmp = _SPEC_TUNER_PATH + f".tmp{os.getpid()}"
+        tmp = path + f".tmp{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump(d, f)
-        os.replace(tmp, _SPEC_TUNER_PATH)
+        os.replace(tmp, path)
     except OSError:
         pass  # persistence is best-effort
 
@@ -610,11 +646,11 @@ def _spec_chunks(plan, n_threads: int) -> int:
     [16, 48]: 132-136 fps vs 121 at K=4), so the tuner's job is
     stepping onto the plateau, not finding a sharp peak.
 
-    The choice persists to ``build/spec_tuner.json`` keyed on
-    (geometry, cores, .so build): re-measuring per process meant every
+    The choice persists to ``build/<build_key>/spec_tuner.json`` keyed on
+    (geometry, cores): re-measuring per process meant every
     process's first frames were trials, and trials taken under a load
     spike locked in a bad K for the process lifetime (VERDICT r3 weak
-    #1). A rebuilt .so invalidates persisted choices."""
+    #1). Another build key starts from no persisted choices."""
     with _spec_tuner_lock:
         key = _spec_key(plan)
         st = _spec_tuner.get(key)
@@ -677,7 +713,7 @@ def pgo_status() -> str:
     """'on' if the loaded decode .so was profile-guided, 'off' if the
     training step fell back to a plain build, 'unknown' pre-build."""
     try:
-        with open(os.path.join(_NATIVE_DIR, "build", "pgo_status")) as f:
+        with open(os.path.join(_BUILD_ROOT, build_key(), "pgo_status")) as f:
             return f.read().strip() or "unknown"
     except OSError:
         return "unknown"
@@ -690,10 +726,10 @@ def native_decode_planes(plan, n_threads: int | None = None,
     """Threaded entropy decode into per-component natural-order int16 planes.
 
     The fast path (SURVEY.md §7 layers 4-5): de-zigzag happens during the
-    C++ scatter writes (free), so the device IDCT runs as plane-tiled
-    matmuls with no relayout (:mod:`jpeg_tpu.ops.pallas_kernels`). Quantized
-    coefficients (dequant is folded into the device stage); pad regions of
-    the padded strides stay zero.
+    C++ scatter writes (free), so the device pixel stage reads whole
+    planes with no relayout (:mod:`jpeg_tpu.ops.pixel`, which owns the
+    layout). Quantized coefficients (dequant is folded into the device
+    stage).
 
     Restart-segmented streams decode segment-parallel. Streams WITHOUT
     restart markers use speculative self-synchronizing parallel decode
@@ -1288,8 +1324,8 @@ def native_decode_progressive(plan, n_threads: int | None = None,
 def native_decode_progressive_planes(plan,
                                      n_threads: int | None = None):
     """Progressive entropy decode -> de-zigzagged int16 coefficient planes
-    in the fast-path layout (:func:`plane_shapes`) — feeds the fused Pallas
-    kernel directly, skipping the [total_blocks, 64] stream round trip."""
+    in the fast-path layout (:func:`plane_shapes`) — feeds the pixel stage
+    directly, skipping the [total_blocks, 64] stream round trip."""
     import ctypes as ct
 
     lib = _load()

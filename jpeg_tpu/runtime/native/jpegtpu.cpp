@@ -1,11 +1,11 @@
 // jpeg_tpu native runtime: threaded LUT-based entropy decode + scan utilities.
 //
-// TPU-native replacement for the runtime role the reference implements in
+// Native replacement for the runtime role the reference implements in
 // Rust (HuffmanDecoder, src/jpeg/huffman.rs:109-268, and the MCU interleave
 // loop, src/jpeg/decoder.rs:195-215): the irregular, bit-granular work stays
 // on host but becomes O(1)-per-symbol via flat 16-bit LUTs and parallel
 // across restart segments via a thread pool. The dense coefficient->pixel
-// math lives on the TPU (jpeg_tpu.ops); this library only produces the
+// math lives on the device (jpeg_tpu.ops); this library only produces the
 // [total_blocks, 64] coefficient tensor the device pipeline consumes.
 //
 // Hot-loop design: 64-bit left-aligned bit buffer with branch-predicted
@@ -363,8 +363,8 @@ constexpr uint8_t kZigCol[64] = {
 
 // Decode one block directly into a natural-order int16 component plane at
 // (row0, col0): the de-zigzag "relayout" costs nothing extra here (the
-// scatter writes happen anyway), which is what lets the TPU IDCT run as
-// plane-tiled matmuls with no reshape at all (ops/pallas_kernels.py).
+// scatter writes happen anyway), which is what lets the device pixel stage
+// read whole planes with no relayout (ops/pixel.py).
 // DC symbol of one plane block: fast value-fused path, full-LUT
 // fallback. Returns 0 ok, 1 invalid prefix. (Step helpers factored out
 // of next_block_plane so the two-stream interleaved decoder below can

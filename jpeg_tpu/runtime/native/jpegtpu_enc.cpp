@@ -1,9 +1,9 @@
 // jpeg_tpu native runtime: baseline JPEG entropy ENCODER.
 //
 // The reference never built an encoder (its forward DCT is dead code,
-// src/transform.rs:18-53). This implements the host half of the TPU encode
+// src/transform.rs:18-53). This implements the host half of the device encode
 // pipeline: quantized coefficients arrive as per-component natural-order
-// int16 planes (the same layout the TPU forward-DCT kernel emits and the
+// int16 planes (the same layout the device forward transform emits and the
 // decoder's entropy stage consumes), and this library performs zigzag
 // readout, DC prediction, run-length + magnitude coding, Huffman bit packing
 // with 0xFF00 stuffing, and restart markers — parallel across restart

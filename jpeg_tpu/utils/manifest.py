@@ -40,7 +40,7 @@ class Manifest:
 
     def mark_done(self, item: str, **info) -> None:
         # Completion timestamp: resume diagnostics and steady-state
-        # throughput decay measurement (tools/endurance.py) read it.
+        # throughput measurements read it.
         rec = {"item": str(item), "ts": round(time.time(), 3), **info}
         self._done[str(item)] = rec
         self._fh.write(json.dumps(rec) + "\n")

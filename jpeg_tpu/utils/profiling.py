@@ -3,7 +3,7 @@
 SURVEY.md §5: the reference has no tracing/metrics at all (ad-hoc println
 only, ``src/jpeg/huffman.rs:153-154``). Here: stage timers with JSON export,
 roofline counters (bytes moved / FLOPs per stage), and a jax.profiler trace
-context for TPU timeline capture.
+context for device timeline capture.
 """
 
 from __future__ import annotations

@@ -177,7 +177,7 @@ def test_encode_ycck_roundtrip_pil():
 def test_decode_plan_fast_guards_cmyk():
     # decode_plan_fast itself (not just decode_bytes) must detect a
     # 4-component CMYK plan and fall back to the compat pipeline rather
-    # than crash in the 3-channel Pallas kernel.
+    # than crash in the 3-channel plane path.
     from jpeg_tpu.models.decoder import decode_plan, decode_plan_fast
 
     _, data = _cmyk_bytes()

@@ -228,7 +228,7 @@ def test_native_arith_decoder_matches_python():
 
 
 def test_fast_path_arith_sequential():
-    """Sequential arithmetic streams ride the fast Pallas path via the C++
+    """Sequential arithmetic streams ride the plane path via the C++
     plane decoder; progressive arithmetic falls back to compat."""
     data = GOLD["rst_jpg"].tobytes()
     a = jpeg_tpu.decode_bytes(data)
@@ -316,7 +316,7 @@ def test_native_progressive_arith_matches_python():
     p2 = parse_jpeg(d)
     np.testing.assert_array_equal(native_decode_progressive(p2),
                                   decode_progressive_coefficients_arith(p2))
-    # SOF10 rides the fast Pallas path via the native plane assembly.
+    # SOF10 rides the plane path via the native plane assembly.
     a = jpeg_tpu.decode_bytes(d)
     b = jpeg_tpu.decode_bytes(d, path="fast")
     assert np.abs(a.astype(int) - b.astype(int)).max() <= 1

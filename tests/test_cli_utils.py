@@ -6,7 +6,6 @@ import os
 import numpy as np
 import pytest
 
-from conftest import CORPUS
 from jpeg_tpu.cli import main as cli_main
 from jpeg_tpu.io.corpus import generate_corpus, list_corpus, shard_items
 from jpeg_tpu.io.ppm import read_ppm
@@ -14,9 +13,21 @@ from jpeg_tpu.utils.manifest import Manifest
 from jpeg_tpu.utils.profiling import StageTimer
 
 
+def _seeded_file(tmp_path, width, height, subsampling, name="in.jpg"):
+    """A seeded JPEG (repo encoder, no restart markers) written to disk."""
+    from jpeg_tpu.io.corpus import synthetic_image
+    from jpeg_tpu.models.encoder import encode_rgb
+
+    path = tmp_path / name
+    path.write_bytes(encode_rgb(synthetic_image(width, height, seed=7),
+                                quality=90, subsampling=subsampling))
+    return str(path)
+
+
 def test_cli_decode_p3(tmp_path, capsys):
     out = tmp_path / "out.ppm"
-    rc = cli_main(["decode", CORPUS["huff_simple0"], str(out), "--p3"])
+    src = _seeded_file(tmp_path, 16, 8, (1, 1))
+    rc = cli_main(["decode", src, str(out), "--p3"])
     assert rc == 0
     img = read_ppm(out)
     assert img.shape == (8, 16, 3)
@@ -64,8 +75,8 @@ def test_cli_corpus_error_isolation(tmp_path, capsys):
     assert rep["decoded"] == 2 and rep["failed"] == 1
 
 
-def test_cli_diff(capsys):
-    rc = cli_main(["diff", CORPUS["lena"]])
+def test_cli_diff(tmp_path, capsys):
+    rc = cli_main(["diff", _seeded_file(tmp_path, 96, 64, (1, 1))])
     assert rc == 0
     rep = json.loads(capsys.readouterr().out.strip())
     assert rep["psnr_vs_libjpeg_db"] > 40
@@ -123,8 +134,8 @@ def test_device_trace_noop_and_active(tmp_path):
         _ = jnp.zeros((4,)) + 1
 
 
-def test_cli_info(capsys):
-    rc = cli_main(["info", CORPUS["2x2-chroma"]])
+def test_cli_info(tmp_path, capsys):
+    rc = cli_main(["info", _seeded_file(tmp_path, 750, 595, (2, 2))])
     assert rc == 0
     rep = json.loads(capsys.readouterr().out.strip())
     assert rep["width"] == 750 and rep["height"] == 595
@@ -157,24 +168,23 @@ def test_cli_diff_amplified_output_saturates(tmp_path):
     from PIL import Image
 
     out = tmp_path / "diff.png"
-    rc = cli_main(["diff", CORPUS["lena"], "--amplify", "64",
+    src = _seeded_file(tmp_path, 96, 64, (2, 2))
+    rc = cli_main(["diff", src, "--amplify", "64",
                    "--diff-output", str(out)])
     assert rc == 0
     diff_img = np.asarray(Image.open(out)).astype(int)
     import jpeg_tpu
 
-    with open(CORPUS["lena"], "rb") as f:
+    with open(src, "rb") as f:
         ours = np.asarray(jpeg_tpu.decode_bytes(f.read(), rounding="round"))
-    pil = np.asarray(Image.open(CORPUS["lena"]).convert("RGB"))
+    pil = np.asarray(Image.open(src).convert("RGB"))
     expect = np.clip(np.abs(ours.astype(int) - pil.astype(int)) * 64, 0, 255)
     np.testing.assert_array_equal(diff_img, expect)
 
 
 def test_corpus_limit_process_recycling(tmp_path, capsys):
     """--limit N decodes at most N pending images then exits 0;
-    rerunning with the same manifest continues (process recycling
-    against host-side per-transfer retention in experimental
-    backends)."""
+    rerunning with the same manifest continues (process recycling)."""
     import json
 
     from jpeg_tpu.cli import main

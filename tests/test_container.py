@@ -1,6 +1,7 @@
-"""Container/marker parser tests over the reference corpus.
+"""Container/marker parser tests.
 
-Expected per-image facts verified independently in SURVEY.md §2 (C10).
+The geometry tests encode seeded images with the sizes and samplings of the
+reference corpus files (facts verified in SURVEY.md §2, C10).
 """
 
 import numpy as np
@@ -9,8 +10,19 @@ import pytest
 from jpeg_tpu.io.container import JPEGError, parse_jpeg
 
 
-def test_huff_simple0(corpus):
-    plan = parse_jpeg(corpus["huff_simple0"])
+def _seeded(width, height, subsampling=None):
+    """Seeded stream from the repo's encoder; ``None`` = grayscale."""
+    from jpeg_tpu.io.corpus import synthetic_image
+    from jpeg_tpu.models.encoder import encode_rgb
+
+    img = synthetic_image(width, height, seed=width + height)
+    if subsampling is None:
+        return encode_rgb(img[..., 0], quality=85)
+    return encode_rgb(img, quality=85, subsampling=subsampling)
+
+
+def test_huff_simple0():
+    plan = parse_jpeg(_seeded(16, 8, (1, 1)))
     assert (plan.width, plan.height) == (16, 8)
     assert len(plan.components) == 3
     assert all((c.h, c.v) == (1, 1) for c in plan.components)
@@ -22,16 +34,16 @@ def test_huff_simple0(corpus):
     assert plan.restart_interval == 0
 
 
-def test_lena_bw(corpus):
-    plan = parse_jpeg(corpus["lena-bw"])
+def test_lena_bw():
+    plan = parse_jpeg(_seeded(512, 512))
     assert (plan.width, plan.height) == (512, 512)
     assert len(plan.components) == 1
     assert (plan.mcus_x, plan.mcus_y) == (64, 64)
     assert plan.total_blocks == 64 * 64
 
 
-def test_lena_422(corpus):
-    plan = parse_jpeg(corpus["lena"])
+def test_lena_422():
+    plan = parse_jpeg(_seeded(512, 512, (2, 1)))
     assert (plan.width, plan.height) == (512, 512)
     assert [(c.h, c.v) for c in plan.components] == [(2, 1), (1, 1), (1, 1)]
     assert (plan.h_max, plan.v_max) == (2, 1)
@@ -39,8 +51,8 @@ def test_lena_422(corpus):
     assert plan.blocks_per_mcu == 4
 
 
-def test_2x2_chroma(corpus):
-    plan = parse_jpeg(corpus["2x2-chroma"])
+def test_2x2_chroma():
+    plan = parse_jpeg(_seeded(750, 595, (2, 2)))
     assert (plan.width, plan.height) == (750, 595)
     assert [(c.h, c.v) for c in plan.components] == [(2, 2), (1, 1), (1, 1)]
     # Spec-correct MCU geometry (the reference under-counts here; SURVEY §2).
@@ -48,8 +60,8 @@ def test_2x2_chroma(corpus):
     assert plan.blocks_per_mcu == 6
 
 
-def test_tables_registered(corpus):
-    plan = parse_jpeg(corpus["lena"])
+def test_tables_registered(stream_corpus):
+    plan = parse_jpeg(stream_corpus["422"])
     for c in plan.components:
         assert plan.dc_tables[c.dc_id].values.size > 0
         assert plan.ac_tables[c.ac_id].values.size > 0
@@ -61,15 +73,15 @@ def test_not_a_jpeg():
         parse_jpeg(b"\x89PNG\r\n\x1a\n" + b"\x00" * 100)
 
 
-def test_truncated_stream(corpus):
+def test_truncated_stream(stream_corpus):
     with pytest.raises(JPEGError):
-        parse_jpeg(corpus["lena"][:20])
+        parse_jpeg(stream_corpus["422"][:20])
 
 
-def test_progressive_parses(corpus):
+def test_progressive_parses(stream_corpus):
     # Flip SOF0 (0xC0) to progressive (0xC2): now parsed as a progressive
     # stream (one pseudo-scan); decoding validates scan structure separately.
-    data = bytearray(corpus["lena-bw"])
+    data = bytearray(stream_corpus["gray-nort"])
     idx = bytes(data).find(b"\xff\xc0")
     assert idx > 0
     data[idx + 1] = 0xC2
@@ -77,8 +89,8 @@ def test_progressive_parses(corpus):
     assert plan.progressive and len(plan.prog_scans) == 1
 
 
-def test_extended_sof_rejected_cleanly(corpus):
-    data = bytearray(corpus["lena-bw"])
+def test_extended_sof_rejected_cleanly(stream_corpus):
+    data = bytearray(stream_corpus["gray-nort"])
     idx = bytes(data).find(b"\xff\xc0")
     data[idx + 1] = 0xC5  # differential/hierarchical: unsupported
     with pytest.raises(JPEGError, match="SOF"):
@@ -105,14 +117,14 @@ def test_unstuffing_synthetic():
     assert raw[end:].tolist() == [0xFF, 0xD9]
 
 
-def test_unstuffing_counts(corpus):
-    plan = parse_jpeg(corpus["lena"])
+def test_unstuffing_counts(stream_corpus):
+    plan = parse_jpeg(stream_corpus["422"])
     # Every 0xFF in the unstuffed entropy stream was a stuffed data byte;
     # total length shrinks by exactly the number of FF00 pairs in the raw scan.
     assert plan.scan_data.size > 0
 
 
-def test_nonstandard_table_slot_ids(corpus):
+def test_nonstandard_table_slot_ids():
     """Relabel Huffman table id 1 -> 3 in DHT and SOS; decode must be
     unchanged (exercises the full 4-slot table plumbing, reference
     src/jpeg/mod.rs:75-79)."""
@@ -180,7 +192,7 @@ def test_garbled_app1_ignored():
     assert plan.exif is None
 
 
-def test_native_unstuff_matches_numpy(corpus):
+def test_native_unstuff_matches_numpy():
     """C++ single-pass unstuff+segment scan == the NumPy implementation."""
     import io
 
@@ -303,16 +315,16 @@ def test_16bit_dqt_value_above_255_decodes():
     np.testing.assert_array_equal(a, b)
 
 
-def test_sos_bad_component_count_rejected(corpus):
-    data = bytearray(corpus["huff_simple0"])
+def test_sos_bad_component_count_rejected(stream_corpus):
+    data = bytearray(stream_corpus["444-nort"])
     i = data.find(b"\xff\xda")
     data[i + 4] = 255  # Ns byte
     with pytest.raises(JPEGError):
         parse_jpeg(bytes(data))
 
 
-def test_sos_truncated_header_rejected(corpus):
-    data = bytearray(corpus["huff_simple0"])
+def test_sos_truncated_header_rejected(stream_corpus):
+    data = bytearray(stream_corpus["444-nort"])
     i = data.find(b"\xff\xda")
     # Declared length too short for Ns=3 components (needs 2+1+6+3=12).
     data[i + 2], data[i + 3] = 0, 5

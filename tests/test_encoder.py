@@ -97,7 +97,7 @@ def test_native_entropy_encoder_grayscale_identical():
 
 
 def test_device_encoder_matches_host():
-    """Pallas forward kernel path produces equivalent streams (interpret)."""
+    """The device forward transform produces equivalent streams."""
     from jpeg_tpu.models.encoder import encode_rgb_device
 
     img = _test_image(96, 144, seed=11)

@@ -4,8 +4,8 @@ BASELINE configs 4-5 analogue runnable without a pod: two CPU-backend
 processes form a distributed JAX runtime over localhost, each decodes its
 host shard of a corpus, and metrics aggregate across processes
 (jpeg_tpu.parallel.distributed). This exercises the exact
-``initialize``/``aggregate_metrics``/``shard_items`` code paths a v5p
-multi-host slice would use.
+``initialize``/``aggregate_metrics``/``shard_items`` code paths a multi-host
+run would use.
 """
 
 import json

@@ -3,6 +3,7 @@
 import numpy as np
 import pytest
 
+from conftest import STREAMS
 from jpeg_tpu.entropy.oracle import decode_coefficients
 from jpeg_tpu.io.container import parse_jpeg
 from jpeg_tpu.runtime import (
@@ -16,11 +17,9 @@ pytestmark = pytest.mark.skipif(
 )
 
 
-@pytest.mark.parametrize(
-    "name", ["huff_simple0", "lena-bw", "lena", "2x2-chroma"]
-)
-def test_native_matches_oracle_corpus(name, corpus):
-    plan = parse_jpeg(corpus[name])
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_native_matches_oracle_corpus(name, stream_corpus):
+    plan = parse_jpeg(stream_corpus[name])
     np.testing.assert_array_equal(
         native_decode_coefficients(plan), decode_coefficients(plan)
     )
@@ -42,19 +41,19 @@ def test_native_matches_oracle_restart_streams():
         )
 
 
-def test_native_single_thread_matches_multi(corpus):
-    plan = parse_jpeg(corpus["2x2-chroma"])
+def test_native_single_thread_matches_multi(stream_corpus):
+    plan = parse_jpeg(stream_corpus["420"])
     np.testing.assert_array_equal(
         native_decode_coefficients(plan, n_threads=1),
         native_decode_coefficients(plan, n_threads=4),
     )
 
 
-def test_native_error_isolation(corpus):
+def test_native_error_isolation(stream_corpus):
     """Corrupt entropy data raises NativeDecodeError with segment index."""
-    plan = parse_jpeg(corpus["lena-bw"])
+    plan = parse_jpeg(stream_corpus["gray-nort"])
     # Build a table set where every prefix is invalid by zeroing the LUTs.
-    bad = parse_jpeg(corpus["lena-bw"])
+    bad = parse_jpeg(stream_corpus["gray-nort"])
     for t in bad.dc_tables:
         t.lut_length = np.zeros_like(t.lut_length)
     with pytest.raises(NativeDecodeError) as ei:

@@ -5,6 +5,7 @@ src/jpeg/huffman.rs:146-195).
 """
 
 import numpy as np
+import pytest
 
 from jpeg_tpu.entropy.oracle import BitReader, decode_symbol, next_block
 from jpeg_tpu.entropy.tables import HuffmanTable
@@ -101,13 +102,16 @@ def test_zrl_capped_at_block_end():
     assert (block[61:] == 0).all()
 
 
-def test_decode_with_offsets_bookkeeping():
+@pytest.mark.parametrize("name", ["gray-nort", "420-nort", "422-nort",
+                                  "444-nort"])
+def test_decode_with_offsets_bookkeeping(stream_corpus, name):
     """Block-start bit offsets are strictly increasing and stay within the
-    segment (debug API for cursor validation)."""
+    segment (debug API for cursor validation). Single-segment streams: the
+    offsets restart at every restart marker."""
     from jpeg_tpu.entropy.oracle import decode_coefficients, decode_coefficients_with_offsets
     from jpeg_tpu.io.container import parse_jpeg
 
-    plan = parse_jpeg(open("/root/reference/working-jpegs/huff_simple0.jpg", "rb").read())
+    plan = parse_jpeg(stream_corpus[name])
     coeffs, offsets = decode_coefficients_with_offsets(plan)
     np.testing.assert_array_equal(coeffs, decode_coefficients(plan))
     assert (np.diff(offsets) > 0).all()

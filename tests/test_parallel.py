@@ -20,9 +20,19 @@ from jpeg_tpu.parallel.batch import (
 from jpeg_tpu.parallel.mesh import make_mesh
 
 
+def _seeded_jpeg(width, height, subsampling=(2, 2), seed=0):
+    from jpeg_tpu.io.corpus import synthetic_image
+    from jpeg_tpu.models.encoder import encode_rgb
+
+    return encode_rgb(synthetic_image(width, height, seed), quality=85,
+                      subsampling=subsampling, restart_interval_mcus=2)
+
+
 @pytest.fixture(scope="module")
-def lena_batch(corpus=None):
-    data = open("/root/reference/lena.jpeg", "rb").read()
+def lena_batch():
+    """A batch of one seeded 4:2:2 image with lena's sampling (full MCU
+    rows, mcus_y divisible by the seg axis)."""
+    data = _seeded_jpeg(128, 64, subsampling=(2, 1))
     plan = parse_jpeg(data)
     coeffs = decode_coefficients_host(plan)
     geom = PipelineGeometry.of(plan)
@@ -85,9 +95,10 @@ def test_rows_sp_rejects_bad_geometry(lena_batch):
 
 
 def test_graft_entry_dryrun():
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
@@ -96,29 +107,34 @@ def test_graft_entry_dryrun():
     ge.dryrun_multichip(8)
 
 
-def test_batch_fast_path_sharded():
-    """vmap'd Pallas fast path sharded over the data axis (interpret mode)."""
-    import jax.numpy as jnp
-
-    from jpeg_tpu.io.corpus import synthetic_jpeg
-    from jpeg_tpu.ops.pallas_kernels import plan_quant_patterns
-    from jpeg_tpu.parallel.batch import decode_batch_fast
+def _plane_batch(data, batch):
+    from jpeg_tpu.ops.pixel import plan_quant_tables
     from jpeg_tpu.runtime import native_decode_planes
 
-    data = synthetic_jpeg(128, 96, seed=0)
     plan = parse_jpeg(data)
-    geom = PipelineGeometry.of(plan)
-    planes = [np.asarray(p) for p in native_decode_planes(plan)]
-    qpats = plan_quant_patterns(plan, geom)
-    B = 8
-    bp = [np.broadcast_to(p, (B,) + p.shape).copy() for p in planes]
-    bq = [np.broadcast_to(q, (B,) + q.shape).copy() for q in qpats]
+    planes = [np.asarray(p).copy() for p in native_decode_planes(plan)]
+    q = plan_quant_tables(plan)
+    bp = [np.broadcast_to(p, (batch,) + p.shape).copy() for p in planes]
+    bq = np.broadcast_to(q, (batch,) + q.shape).copy()
+    return PipelineGeometry.of(plan), planes, q, bp, bq
+
+
+def test_batch_fast_path_sharded():
+    """Batched plane path sharded over the data axis: every shard equals
+    the one-image decode, and the output is [B, H, W, 3] on 8 devices."""
+    from jpeg_tpu.parallel.batch import decode_batch_fast
+
+    data = _seeded_jpeg(128, 96)
+    geom, planes, q, bp, bq = _plane_batch(data, 8)
     mesh = make_mesh(n_data=8, n_seg=1)
-    out = np.asarray(decode_batch_fast(bp, bq, geom, mesh=mesh))
+    out = decode_batch_fast(bp, bq, geom, mesh=mesh)
+    assert len({s.device for s in out.addressable_shards}) == 8
+    out = np.asarray(out)
     single = np.asarray(decode_batch_fast([p[None] for p in planes],
-                                          [q[None] for q in qpats], geom))[0]
-    assert out.shape[0] == B
-    for i in range(B):
+                                          q[None], geom))[0]
+    assert out.shape == (8, 96, 128, 3)
+    np.testing.assert_array_equal(single, decode_bytes(data, path="fast"))
+    for i in range(8):
         np.testing.assert_array_equal(out[i], single)
 
 
@@ -131,26 +147,18 @@ def test_data_sharding_helper():
 
 
 def test_rows_sp_fast_matches_single():
-    """Pallas fast path sharded over (data, seg): bands of the coefficient
-    planes decode independently per device."""
-    from jpeg_tpu.io.corpus import synthetic_jpeg
-    from jpeg_tpu.ops.pallas_kernels import plan_quant_patterns
+    """Plane path sharded over (data, seg): bands of the coefficient planes
+    decode independently per device."""
     from jpeg_tpu.parallel.batch import decode_batch_fast, decode_batch_rows_sp_fast
-    from jpeg_tpu.runtime import native_decode_planes
 
-    # mcus_y must be divisible by band_mcus * n_seg = 8 * 2 = 16 (4:2:0).
-    data = synthetic_jpeg(256, 16 * 16 * 2, seed=5)  # H = 512 -> mcus_y = 32
-    plan = parse_jpeg(data)
-    geom = PipelineGeometry.of(plan)
-    planes = [np.asarray(p) for p in native_decode_planes(plan)]
-    qpats = plan_quant_patterns(plan, geom)
+    # mcus_y must be divisible by n_seg, with full MCU rows (4:2:0).
+    data = _seeded_jpeg(96, 64, seed=5)  # H = 64 -> mcus_y = 4
+    geom, planes, q, bp, bq = _plane_batch(data, 4)
     B = 4
-    bp = [np.broadcast_to(p, (B,) + p.shape).copy() for p in planes]
-    bq = [np.broadcast_to(q, (B,) + q.shape).copy() for q in qpats]
     mesh = make_mesh(n_data=4, n_seg=2)
     out = np.asarray(decode_batch_rows_sp_fast(bp, bq, geom, mesh))
     single = np.asarray(decode_batch_fast(
-        [p[None] for p in planes], [q[None] for q in qpats], geom))[0]
+        [p[None] for p in planes], q[None], geom))[0]
     assert out.shape[0] == B
     for i in range(B):
         np.testing.assert_array_equal(out[i], single)
@@ -160,11 +168,7 @@ def test_encode_batch_device_sharded():
     """Batched device forward transform matches the single-image encoder."""
     from jpeg_tpu.io.corpus import synthetic_image
     from jpeg_tpu.models.decoder import PipelineGeometry
-    from jpeg_tpu.ops.pallas_kernels import (
-        fused_plane_encoder,
-        padded_plane_shapes,
-        plan_inv_quant_patterns,
-    )
+    from jpeg_tpu.ops.pixel import forward_planes_fn, inverse_quant_tables
     from jpeg_tpu.entropy.annex_k import scaled_quant_table, QUANT_CHROMA, QUANT_LUMA
     from jpeg_tpu.parallel.batch import encode_batch_device
 
@@ -173,20 +177,15 @@ def test_encode_batch_device_sharded():
         width=128, height=96, mcus_x=8, mcus_y=6, h_max=2, v_max=2,
         sampling=((2, 2), (1, 1), (1, 1)),
     )
-    shapes = padded_plane_shapes(geom)
-    rows_pad, w_pad = shapes[0]
-    planar = np.pad(img.transpose(2, 0, 1),
-                    ((0, 0), (0, rows_pad - 96), (0, w_pad - 128)),
-                    mode="edge")
+    planar = img.transpose(2, 0, 1)
     q = [scaled_quant_table(QUANT_LUMA, 85),
          scaled_quant_table(QUANT_CHROMA, 85),
          scaled_quant_table(QUANT_CHROMA, 85)]
-    iqp = plan_inv_quant_patterns(q, geom)
-    single = fused_plane_encoder(geom, interpret=True)(
-        *( [np.asarray(planar)] + [np.asarray(x) for x in iqp] ))
+    iq = inverse_quant_tables(q)
+    single = forward_planes_fn(geom)(planar, iq)
     B = 4
     bp = np.broadcast_to(planar, (B,) + planar.shape).copy()
-    bq = [np.broadcast_to(x, (B,) + x.shape).copy() for x in iqp]
+    bq = np.broadcast_to(iq, (B,) + iq.shape).copy()
     mesh = make_mesh(n_data=4, n_seg=1)
     out = encode_batch_device(bp, bq, geom, mesh=mesh)
     for c in range(3):

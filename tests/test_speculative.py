@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from conftest import CORPUS
+from conftest import STREAMS
 from jpeg_tpu.io.container import parse_jpeg
 from jpeg_tpu.runtime import native_available, native_decode_planes
 
@@ -31,10 +31,11 @@ def _assert_spec_equals_seq(data):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("name", list(CORPUS))
-def test_reference_corpus(name, corpus):
-    """The reference corpus has no restart markers — exactly the case."""
-    _assert_spec_equals_seq(corpus[name])
+@pytest.mark.parametrize("name", [n for n in STREAMS if n.endswith("-nort")])
+def test_reference_corpus(name, stream_corpus):
+    """Streams without restart markers — exactly the case (as in the
+    reference corpus)."""
+    _assert_spec_equals_seq(stream_corpus[name])
 
 
 @pytest.mark.parametrize("subsampling", [0, 1, 2])
@@ -79,14 +80,14 @@ def test_low_entropy_stream():
 
 
 def test_chunk_tuner_persists_across_processes(tmp_path, monkeypatch):
-    """The auto-tuner's chosen chunk count persists per (geometry, cores,
-    .so build) so a fresh process (e.g. the driver's bench) starts on the
-    tuned value instead of re-trialing under unknown load (VERDICT r3
-    weak #1)."""
+    """The auto-tuner's chosen chunk count persists per (geometry, cores)
+    beside the build it tuned, so a fresh process (e.g. the bench) starts
+    on the tuned value instead of re-trialing under unknown load (VERDICT
+    r3 weak #1)."""
     import jpeg_tpu.runtime as rt
 
-    monkeypatch.setattr(rt, "_SPEC_TUNER_PATH",
-                        str(tmp_path / "spec_tuner.json"))
+    monkeypatch.setattr(rt, "_spec_tuner_path",
+                        lambda: str(tmp_path / "spec_tuner.json"))
     rng = np.random.default_rng(9)
     img = rng.integers(0, 256, (128, 128, 3), dtype=np.uint8)
     buf = io.BytesIO()
@@ -121,3 +122,13 @@ def test_pgo_status_reports():
 
     _load()
     assert pgo_status() in ("on", "off")  # build marker present post-build
+
+
+def test_spec_tuner_lives_beside_keyed_build():
+    import os
+
+    import jpeg_tpu.runtime as rt
+
+    path = rt._spec_tuner_path()
+    assert os.path.dirname(path) == os.path.join(rt._BUILD_ROOT,
+                                                 rt.build_key())
